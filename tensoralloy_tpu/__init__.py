@@ -1,4 +1,4 @@
-"""tensoralloy_tpu — a TPU-native (JAX/XLA/Pallas) framework for training
+"""tensoralloy_tpu — a JAX framework for training
 neural-network interatomic potentials for alloys and molecules.
 
 Re-designed from scratch with the capabilities of Bismarrck/tensoralloy:

@@ -7,7 +7,7 @@ ASE is not a dependency here, but the interface mirrors ASE's
 get_hessian / ...) over our `Structure`; if ASE is installed an adapter
 (`as_ase_calculator`) wraps it for drop-in MD use.
 
-Design for TPU inference: per-formula VAP cache, and the padded pair
+Design for accelerator inference: per-formula VAP cache, and the padded pair
 count is *bucketed* to powers-of-two so XLA compiles one executable per
 bucket instead of one per structure — this plus on-device distance
 computation removes the reference's dominant featurize/feed-dict
@@ -29,7 +29,7 @@ from .vap import VirtualAtomMap
 
 def model_feature_layout(model, fast: bool = False) -> str:
     """Which feature layout a model consumes: 'segment' for EAM-family
-    models and segment-backend descriptors, 'dense' for dense/pallas
+    models and segment-backend descriptors, 'dense' for dense
     descriptor backends. `fast=True` selects the dense layout for
     EAM-family models too — the scatter-free analytic EFS
     (`nn/eam/fast_efs.py`) reads it."""
@@ -77,9 +77,9 @@ class TensorAlloyCalculator:
         """`chunked`: large-cell evaluation via the rematerialized
         chunk scan (`EamNN.energy_chunked` pair blocks /
         `AtomicNN.energy_chunked` atom-row blocks) — "auto" switches
-        when the padded pair count exceeds `chunk_auto_pairs` (the
-        monolithic backward at 11.3M pairs needs ~24.5 GB HBM;
-        4.4M pairs fits 16 GB — bench_inference.py), True forces it,
+        when the padded pair count exceeds `chunk_auto_pairs` (a
+        threshold sized for the flat-layout autodiff backward on a
+        16 GB device; kept as is on larger ones), True forces it,
         False disables.  `chunk_size`: pairs (EAM family) or atom rows
         (descriptor NNs) per block, 0 = default.
 
@@ -95,8 +95,7 @@ class TensorAlloyCalculator:
         `device_nl="auto"` (the default): large SINGLE frames route
         through the device builder too — at `device_nl_auto_atoms`+
         atoms (default 8192) host featurization is the dominant cost
-        of a one-shot evaluation (14-38 s at 131k atoms on a 1-core
-        host vs ~1 s of device NL build), so the auto path sizes the
+        of a one-shot evaluation, so the auto path sizes the
         builder with the O(1)-host density census
         (`DeviceNeighborList(census="density")`) and keeps every
         O(N·nnl) step on device. Angular models (dense triples) stay
@@ -104,8 +103,7 @@ class TensorAlloyCalculator:
         need the exact census. Small frames keep the host path (no
         build compile for one cheap structure)."""
         # serving processes are usually one-shot: reuse compiled
-        # executables across processes (83-177 s cold vs 2.8-6.9 s
-        # warm at 131k atoms — bench_oneshot_r5); no-op on CPU,
+        # executables across processes (see cache.py); no-op on CPU,
         # opt out with TENSORALLOY_NO_CACHE=1
         from .cache import enable_compilation_cache
         enable_compilation_cache()
@@ -124,7 +122,7 @@ class TensorAlloyCalculator:
         self.device_nl_auto_atoms = int(device_nl_auto_atoms)
         # Scatter-free analytic EFS for the EAM family
         # (`nn/eam/fast_efs.py`): gathers + dense row reductions only —
-        # no XLA TPU scatters in forward or backward, no O(npairs)
+        # no scatter-adds in forward or backward, no O(npairs)
         # autodiff residuals, so large cells need no chunking either.
         # "auto" = on whenever the model supports it, EXCEPT when the
         # caller explicitly forced chunked=True (an explicit request
@@ -215,9 +213,9 @@ class TensorAlloyCalculator:
                     and not use_device):
                 # dense descriptor models: differentiate w.r.t. the
                 # pair/triple VECTORS and assemble forces through the
-                # featurizer's transpose tables — the autodiff-vs-
-                # positions path's gather-VJP lowers to an XLA TPU
-                # scatter that dominates at large padding
+                # featurizer's transpose tables instead of the
+                # scatter-add that the autodiff-vs-positions path's
+                # gather-VJP lowers to
                 from .ops.dense import make_dense_efs_fn
                 efs = self._jit_efs(make_dense_efs_fn(
                     model.variational_energy, extras))
@@ -352,11 +350,9 @@ class TensorAlloyCalculator:
         feats = (self._features_device(structure, vap) if use_device
                  else self._features(structure, vap))
         # chunk_auto_pairs is calibrated for the FLAT-segment autodiff
-        # backward (11.3M-pair residuals need ~24.5 GB HBM); the dense
-        # row layout holds ~8x less per padded pair and the monolithic
-        # dense GRAP backward at 131k atoms/16.8M pairs measured fine
-        # on chip (0.419 s, bench_inference_r4) — scale the threshold
-        # so large dense frames stay monolithic
+        # backward; the dense row layout holds ~8x less per padded
+        # pair, so the threshold scales and large dense frames (the
+        # 131k-atom GRAP cell) stay monolithic
         auto_pairs = self.chunk_auto_pairs * (
             8 if "pair_j_d" in feats else 1)
         use_chunked = efs_chunked is not None and (

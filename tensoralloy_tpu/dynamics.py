@@ -2,7 +2,7 @@
 
 The reference delegates MD to LAMMPS/ASE through its exporters; here
 the trained potential IS a jittable function, so the whole integrator
-runs on the TPU: velocity-Verlet steps inside one `jax.lax.scan`
+runs on the accelerator: velocity-Verlet steps inside one `jax.lax.scan`
 (forces re-derived by `jax.grad` each step), with the host only
 rebuilding the neighbor list between chunks. No per-step host-device
 round trips.
@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .atoms import Structure
+from .nn.fields import HIGHEST
 
 # (eV/A) / amu in A/fs^2
 FORCE_TO_ACC = 9.648533290731905e-3
@@ -129,7 +130,7 @@ class VelocityVerlet:
         # Scatter-free analytic EFS for EAM-family models
         # (`nn/eam/fast_efs.py`): the per-step force evaluation becomes
         # gathers + dense row reductions instead of autodiff whose
-        # gather-VJPs lower to slow XLA TPU scatters — and the exact
+        # gather-VJPs lower to scatter-adds — and the exact
         # many-body heat flux has the same analytic form
         # (make_fast_heat_flux_fn), so Green-Kubo production is
         # scatter-free too. Descriptor models keep the autodiff path
@@ -242,7 +243,8 @@ class VelocityVerlet:
                 g = jax.grad(e_of)(pos, cell)
                 return -g * mask, jnp.zeros((), pos.dtype)
             gpos, gcell = jax.grad(e_of, argnums=(0, 1))(pos, cell)
-            virial = gpos.T @ pos + gcell.T @ cell
+            virial = (jnp.dot(gpos.T, pos, precision=HIGHEST) +
+                      jnp.dot(gcell.T, cell, precision=HIGHEST))
             return -gpos * mask, pot_pressure(virial, cell)
 
         def kinetic(vel):
@@ -256,7 +258,8 @@ class VelocityVerlet:
                 # (P0 I - P_inst), P_inst = P_pot + m v (x) v / V
                 # (symmetric -> no cell rotation); per-component clip
                 # mirrors the scalar 1% safety bound
-                mvv = (vel * masses * mask).T @ vel / FORCE_TO_ACC
+                mvv = jnp.dot((vel * masses * mask).T, vel,
+                              precision=HIGHEST) / FORCE_TO_ACC
                 p_inst = p_pot + mvv / vol * EV_A3_TO_GPA
                 eye = jnp.eye(3, dtype=pos.dtype)
                 delta = -dt / (3.0 * self.pressure_tau) * \
@@ -329,9 +332,11 @@ class VelocityVerlet:
                         return model.variational_energy(
                             self.params, dict(feats, positions=p, cell=h))
                     gpos, gcell = jax.grad(e_of, argnums=(0, 1))(pos, cell)
-                    virial = gpos.T @ pos + gcell.T @ cell
+                    virial = (jnp.dot(gpos.T, pos, precision=HIGHEST) +
+                              jnp.dot(gcell.T, cell, precision=HIGHEST))
                 mv = vel * masses * mask
-                sigma = (virial - mv.T @ vel / FORCE_TO_ACC) / vol
+                sigma = (virial - jnp.dot(mv.T, vel, precision=HIGHEST)
+                         / FORCE_TO_ACC) / vol
             else:
                 sigma = jnp.zeros((3, 3), pos.dtype)
             return energy, ke, p_inst, j, sigma

@@ -2,7 +2,7 @@
 
 The reference's data pipeline (`tensordb`) samples AIMD frames by
 fixed schedules; the modern loop ranks candidates by MODEL DISAGREEMENT
-instead. This module provides the TPU-native primitive: K independently
+instead. This module provides the device-side primitive: K independently
 trained parameter sets evaluated in ONE device program via `jax.vmap`
 over a stacked parameter pytree — the featurization, neighbor lists,
 and XLA executable are shared, so ensemble inference costs roughly one

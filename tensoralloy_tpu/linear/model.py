@@ -1,7 +1,7 @@
 """Linear moment-tensor potentials (reference `tensoralloy/linear/`:
 `LinearTensorMD` + the Cython kernels in `ops.pyx`).
 
-TPU-native redesign: the model is linear in its coefficients,
+Redesign: the model is linear in its coefficients,
 E = sum_e [ sum_{i in e} G_i . c_e + N_e b_e ], with G the GRAP
 moment-tensor invariants. The reference's hand-written Cython force
 kernels (`kernel_F1/kernel_F2`, `sum_forces`) are replaced by exact

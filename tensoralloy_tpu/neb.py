@@ -3,9 +3,9 @@
 The reference delegates NEB to a replica-enabled LAMMPS build through
 deck generation (`/root/reference/tensoralloy/analysis/lammps/calcs.py`);
 here the trained potential is a jittable function, so the whole band
-relaxes ON the TPU: every replica's energy/forces come from ONE
-`jax.vmap`-batched evaluation (replicas are just a leading batch axis —
-MXU-friendly), and the FIRE damped-dynamics optimizer runs inside
+relaxes ON the device: every replica's energy/forces come from ONE
+`jax.vmap`-batched evaluation (replicas are just a leading batch
+axis), and the FIRE damped-dynamics optimizer runs inside
 `jax.lax.scan` with the host only rebuilding the (skinned) neighbor
 lists between chunks.
 

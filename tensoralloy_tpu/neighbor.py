@@ -8,8 +8,8 @@ reference's ASE-backed neighbor machinery
 ``|R_j + S @ cell - R_i| < cutoff`` one entry is produced; both (i, j, S)
 and (j, i, -S) appear; the self-pair (i, i, 0) is excluded.
 
-These bounds feed the static-shape padding discipline of the TPU compute
-path (flat pair arrays padded to ``nij_max`` etc.).
+These bounds feed the static-shape padding discipline of the jitted
+compute path (flat pair arrays padded to ``nij_max`` etc.).
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ def neighbor_list(structure: Structure, cutoff: float,
             shift = shift + wrap_off[ii] - wrap_off[jj]
         return ii, jj, shift, d, vec
 
-    if use_native and not os.environ.get("TENSORALLOY_TPU_NO_NATIVE"):
+    if use_native and not os.environ.get("TENSORALLOY_NO_NATIVE"):
         from .native import native_neighbor_list
         got = native_neighbor_list(pos, cell, pbc, cutoff)
         if got is not None:
@@ -150,8 +150,8 @@ class NeighborSize:
 
     `nnl_tot` (max neighbors of any center, all elements together) and
     `ntl` (max symmetric j<k triples of any center) size the dense
-    per-atom [n_vap, nnl] / [n_vap, ntl] layouts of the matmul/Pallas
-    descriptor backends; the reference's per-element `nnl` sizes its
+    per-atom [n_vap, nnl] / [n_vap, ntl] layouts of the 'dense'
+    descriptor backend; the reference's per-element `nnl` sizes its
     scatter g-tensor.
     """
     nnl: int

@@ -4,7 +4,7 @@
 Architecture: descriptors g_i -> optional min-max scaling -> per-element
 MLP -> atomic energy; total energy is the masked sum. The VAP layout
 makes each element's atoms a *static* row slice, so "per-element MLP"
-compiles to one dense matmul chain per element on the MXU — no gather,
+compiles to one dense matmul chain per element — no gather,
 no dynamic partition (contrast `nn/partition.py:18-139` in the
 reference).
 """
@@ -156,7 +156,7 @@ class AtomicNN:
         if getattr(self.descriptor, "backend", "segment") == "segment":
             raise ValueError(
                 "energy_chunked requires a dense-layout descriptor "
-                "backend ('dense' or 'pallas'); the flat segment "
+                "backend ('dense'); the flat segment "
                 "layout cannot be row-chunked")
         d_keys = [k for k in features if k.endswith("_d")]
         if "pair_j_d" not in features:

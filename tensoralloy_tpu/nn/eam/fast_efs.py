@@ -1,13 +1,11 @@
-"""Scatter-free analytic E+F+stress for the EAM family (TPU fast path).
+"""Scatter-free analytic E+F+stress for the EAM family (fast path).
 
 Why this exists: the autodiff EFS (`nn/fields.make_efs_fn`) over the
-flat pair layout is correct everywhere but lowers to XLA TPU *scatters*
+flat pair layout is correct everywhere but lowers to scatter-adds
 twice — the forward `segment_sum` over pairs and the VJP of the
-per-pair position gathers — and TPU scatter-adds run orders of
-magnitude below HBM bandwidth at the 10M-pair scale (the 131k-atom
-EFS measured 2.63 s on a v5e whose compulsory traffic is ~10 ms;
-BENCH_r03/VERDICT r3 weak #1).  The EAM family needs no autodiff at
-all: every model in the family is
+per-pair position gathers — and it keeps O(npairs) autodiff
+residuals.  The EAM family needs no autodiff at all: every model in
+the family is
 
     E = sum_i F_i(A_i),   A_i = sum_{j in row i} a(v_ij; e_i, e_j)
 
@@ -38,9 +36,7 @@ alloy/fs/adp, empirical and MLP functions, multi-element bucketed VAP
 padding, non-orthogonal cells — `tests/test_fast_efs.py`.
 
 Reference context: the reference's analogous hot path is its
-TF graph of `basic.py:276-421` (autodiff) — it never needed this
-because CUDA scatter-adds are fast; TPU-native design demands the
-gather-only formulation.
+TF graph of `basic.py:276-421` (autodiff).
 """
 from __future__ import annotations
 
@@ -83,10 +79,7 @@ def _make_pass(model) -> Callable:
 
         # per-pair vectors as a (vx, vy, vz) COMPONENT tuple of
         # [n_vap, nnl] arrays: the elementwise math is structure-of-
-        # arrays, but the position FETCH is one row gather — per-pair
-        # gathers of 1D operands serialize on TPU when fused with
-        # arithmetic (0.74 s vs 0.037 s at 131k/128 for the geometry
-        # stage alone; `artifacts/probe_fast_efs3.py`), so every
+        # arrays, but the position FETCH is one row gather, so every
         # per-pair lookup below rides a [n_vap, C] row-gather table.
         elem_np = np.asarray(model.vap_element_idx)
         n_el = len(elements)

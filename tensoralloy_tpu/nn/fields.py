@@ -19,6 +19,12 @@ import jax.numpy as jnp
 
 # eV/A^3 -> GPa
 EV_ANGSTROM3_TO_GPA = 160.21766208
+# The virial contracts over every atom (or pair) with absolute
+# positions of O(cell size); at float32 matmul defaults a GPU rounds
+# the operands to TF32 (10-bit mantissa), which breaks the tensor's
+# symmetry (by 1.2e-3 GPa for a 131k-atom GRAP cell on an H100). These
+# products are tiny next to the model, so they always run exactly.
+HIGHEST = jax.lax.Precision.HIGHEST
 GPa = 1.0 / EV_ANGSTROM3_TO_GPA  # 1 GPa in eV/A^3
 
 
@@ -53,7 +59,8 @@ def make_efs_fn(energy_fn: Callable,
         energy, (gpos, gcell) = jax.value_and_grad(
             e_of, argnums=(0, 1))(pos, cell)
         forces = -gpos
-        virial = gpos.T @ pos + gcell.T @ cell
+        virial = (jnp.dot(gpos.T, pos, precision=HIGHEST) +
+                  jnp.dot(gcell.T, cell, precision=HIGHEST))
         volume = jnp.maximum(jnp.abs(jnp.linalg.det(cell)), 1e-12)
         stress = virial / volume
         voigt = full_to_voigt(stress)
@@ -101,7 +108,7 @@ def make_rij_efs_fn(energy_fn: Callable) -> Callable:
       virial/stress from W = sum_p g_p (x) rij_p.
 
     Only the flat pair layout (descriptor backend 'segment') carries
-    explicit rij arrays; dense/pallas backends compute distances from
+    explicit rij arrays; dense backends compute distances from
     their own columns.
     """
 
@@ -123,14 +130,15 @@ def make_rij_efs_fn(energy_fn: Callable) -> Callable:
                                                num_segments=n_vap)
         g = grads["rij"]
         forces = seg(g, "pair_i") - seg(g, "pair_j")
-        virial = g.T @ features["rij"]
+        virial = jnp.dot(g.T, features["rij"], precision=HIGHEST)
         out = {"energy": energy, "pair_forces": g}
         for gk, (src, dst) in (("trip_rij", ("trip_i", "trip_j")),
                                ("trip_rik", ("trip_i", "trip_k"))):
             if gk in grads:
                 gt = grads[gk]
                 forces = forces + seg(gt, src) - seg(gt, dst)
-                virial = virial + gt.T @ features[gk]
+                virial = virial + jnp.dot(gt.T, features[gk],
+                                          precision=HIGHEST)
                 out[f"{gk}_forces"] = gt
         volume = jnp.abs(jnp.linalg.det(features["cell"]))
         stress = virial / jnp.maximum(volume, 1e-12)

@@ -13,8 +13,9 @@ with T the multiplicity tensor over the compressed monomial basis
 "symmetric" correction; moments 4-5: full outer-product basis).
 
 In the flat-pair layout the whole descriptor is one elementwise filter
-bank + one `segment_sum` of the H (x) M outer product — the Pallas
-fusion target for the hot path (SURVEY §7).
+bank + one `segment_sum` of the H (x) M outer product; the 'dense'
+backend turns the sum into a per-atom contraction that XLA fuses with
+the filter bank.
 
 Radial algorithms: 'sf' (eta, omega), 'density' (A, beta, re), 'morse'
 (D, gamma, r0), 'pexp' (rl, pl), or 'nn' (learned filter MLP, shared
@@ -129,9 +130,8 @@ def moment_basis_c(comps, max_moment: int) -> jnp.ndarray:
     unique monomials (compressed basis for every moment; pairs with
     `multiplicity_tensor`).  At moment 5 this is 56 columns instead of
     the 364-column full outer-product basis — same invariants, ~6.5x
-    less einsum/HBM in the dense path.  Components-in keeps every
-    operand 2-D on TPU (a [*, 3]-minor array is laid out in (8, 128)
-    tiles — 42.7x padding; see `ops/dense.py`)."""
+    less einsum/memory traffic in the dense path.  Components-in keeps
+    every operand 2-D (no [*, 3]-minor arrays; see `ops/dense.py`)."""
     ux = comps[0]
     ones = jnp.ones(ux.shape, ux.dtype)
     cols = [ones]
@@ -173,28 +173,17 @@ def moment_basis_c_t(comps, max_moment: int) -> jnp.ndarray:
     return jnp.stack(cols, axis=1)
 
 
-# Orientation of the dense descriptor contraction
-# (`artifacts/probe_grap_layout.py`; PERF.md round-5 rooflines):
-#   'lane-k' — einsum('ajx,ajd->axd'): filters K and monomials D ride
-#              the lane axis and pad to 128 (8x / up to 6.4x physical
-#              HBM traffic at K=16 / D=20).
-#   'lane-n' — einsum('akn,adn->akd'): NNL rides the lane axis (no
-#              pad); grid algorithms only ('nn' filter MLPs need the
-#              [*, K] matmul layout). Values identical (pinned) in
-#              f32 vector math — but on TPU this contraction (over
-#              the 128-wide lane axis) is matmul-shaped and XLA
-#              lowers it onto the bf16 MXU, where 'lane-k' (K=16 /
-#              D=20 minors) stays in f32 vector ops: measured chip
-#              parity 3.5e-3 at default matmul precision, 2.3e-6
-#              under default_matmul_precision('highest')
-#              (artifacts/probe_grap_layout_r5*.json). Any flip to
-#              'lane-n' for serving must pin the einsum at highest
-#              precision (f32-exact descriptors; see PERF.md round-4
-#              "Numerics") and re-measure with that cost included.
-#              Measured at 131k on chip (probe_grap_layout_r5b):
-#              lane-n forward is 17% SLOWER (72.9/78.2 ms bf16/f32
-#              MXU vs lane-k 62.5 ms), gradients a wash — flip
-#              rejected; 'lane-k' is the measured production choice.
+# Orientation of the dense descriptor contraction:
+#   'lane-k' — einsum('ajx,ajd->axd'): filters K and monomials D are
+#              the minor axes (the default).
+#   'lane-n' — einsum('akn,adn->akd'): the neighbor axis NNL is the
+#              minor axis; grid algorithms only ('nn' filter MLPs need
+#              the [*, K] matmul layout). Values identical (pinned) in
+#              exact float32; the contraction over NNL is
+#              matmul-shaped, so at default matmul precision a GPU may
+#              run it in TF32 — a flip for serving must pin the einsum
+#              at highest precision. Never measured on a GPU; the
+#              switch goes or stays on a measurement.
 DENSE_ORIENTATION = "lane-k"
 
 
@@ -212,8 +201,9 @@ class GenericRadialAtomicPotential:
                  symmetric: bool = False,
                  legacy_mode: bool = False,
                  backend: str = "segment"):
-        if backend not in ("segment", "dense", "pallas"):
-            raise ValueError(f"unknown descriptor backend {backend!r}")
+        if backend not in ("segment", "dense"):
+            raise ValueError(f"unknown descriptor backend {backend!r} "
+                             "(choose 'segment' or 'dense')")
         if backend != "segment" and legacy_mode:
             raise ValueError("legacy GRAP supports only backend='segment'")
         self.backend = backend
@@ -319,13 +309,7 @@ class GenericRadialAtomicPotential:
                 n_radial_slots: int, n_angular_slots: int, angular: bool,
                 params: Optional[dict] = None,
                 vap_element_idx: Optional[np.ndarray] = None) -> jnp.ndarray:
-        backend = self.backend
-        if backend == "pallas" and self.algorithm == "nn":
-            backend = "dense"   # learned filter MLP stays in XLA
-        if backend == "pallas":
-            from ..ops.fused import fused_grap
-            return fused_grap(self, features, rcut, n_radial_slots)
-        if backend == "dense":
+        if self.backend == "dense":
             return self._compute_dense(features, rcut, n_radial_slots,
                                        params, vap_element_idx)
 
@@ -391,12 +375,9 @@ class GenericRadialAtomicPotential:
     def _compute_dense_t(self, features, rcut: float, n_slots: int
                          ) -> jnp.ndarray:
         """[A, C, N]-oriented dense path (DENSE_ORIENTATION='lane-n'):
-        every per-pair operand carries NNL on the LANE axis, so the
-        einsum streams ~1x physical bytes where the 'lane-k'
-        orientation pays the (8, 128) tile pad on its K=16 / D<=56
-        minor axes (8x / up to 6.4x; see PERF.md round-5 rooflines and
-        `artifacts/probe_grap_layout.py`). Values identical to
-        `_compute_dense` (pinned by test_backends)."""
+        every per-pair operand carries NNL on the minor axis instead
+        of the K=16 / D<=56 filter and monomial axes. Values identical
+        to `_compute_dense` (pinned by test_backends)."""
         from ..ops.dense import dense_pair_geometry
         rij, unit, islotf, mask = dense_pair_geometry(features)
         a, n = rij.shape
@@ -422,9 +403,9 @@ class GenericRadialAtomicPotential:
     def _compute_dense(self, features, rcut: float, n_slots: int,
                        params=None, vap_element_idx=None) -> jnp.ndarray:
         """Dense per-atom layout: the (pairs x filters x monomials)
-        reduction becomes ONE batched matmul over the neighbor axis on
-        the MXU — gathers only, no scatter, no [nij, K, D] HBM
-        intermediate."""
+        reduction becomes ONE batched matmul over the neighbor axis —
+        gathers only, no scatter, no [nij, K, D] intermediate in
+        device memory."""
         from ..ops.dense import dense_pair_geometry, slot_onehot_dense
         if DENSE_ORIENTATION == "lane-n" and self.algorithm != "nn":
             return self._compute_dense_t(features, rcut, n_slots)

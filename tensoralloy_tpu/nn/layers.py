@@ -2,8 +2,8 @@
 `tensoralloy/nn/convolutional.py:154-300`, re-expressed functionally).
 
 A "1x1 convolution over atoms" is just a dense layer applied to the
-feature axis — on TPU this is a plain [atoms, features] @ [features, out]
-matmul that XLA tiles onto the MXU, so no conv machinery is needed.
+feature axis — a plain [atoms, features] @ [features, out] matmul, so
+no conv machinery is needed.
 
 Params are plain pytrees: {"layers": [{"w": ..., "b": ...}, ...]}.
 Supports the reference's resnet-dt residual (when consecutive widths

@@ -39,8 +39,9 @@ class SymmetryFunction:
                  beta=(0.005,), gamma=(1.0, -1.0), zeta=(1.0, 4.0),
                  cutoff_function: str = "cosine",
                  backend: str = "segment"):
-        if backend not in ("segment", "dense", "pallas"):
-            raise ValueError(f"unknown descriptor backend {backend!r}")
+        if backend not in ("segment", "dense"):
+            raise ValueError(f"unknown descriptor backend {backend!r} "
+                             "(choose 'segment' or 'dense')")
         self.backend = backend
         self.elements = sorted(elements)
         self.eta = np.asarray(eta, dtype=np.float64)
@@ -83,9 +84,6 @@ class SymmetryFunction:
     def radial(self, features, rcut: float, n_slots: int) -> jnp.ndarray:
         """-> [n_vap, n_slots * n_radial_params]."""
         n_vap = features["positions"].shape[0]
-        if self.backend == "pallas":
-            from ..ops.fused import fused_g2
-            return fused_g2(self, features, rcut, n_slots)
         dtype = features["positions"].dtype
         eta = jnp.asarray(self.radial_grid[:, 0], dtype)
         omega = jnp.asarray(self.radial_grid[:, 1], dtype)
@@ -97,7 +95,7 @@ class SymmetryFunction:
             z = jnp.square(rij[..., None] - omega) / (rcut * rcut)
             v = jnp.exp(-eta * z) * fc[..., None]           # [A, N, T2]
             sel = slot_onehot_dense(islotf, mask, n_slots)
-            g = contract_slots(sel, v)              # [A, S, T2] on MXU
+            g = contract_slots(sel, v)              # [A, S, T2] matmul
             # rij.shape[0] (not n_vap): row-chunked evaluation passes
             # a block of rows with full positions for the gathers
             return g.reshape(rij.shape[0],
@@ -135,9 +133,6 @@ class SymmetryFunction:
     def angular(self, features, acut: float, n_slots: int) -> jnp.ndarray:
         """-> [n_vap, n_slots * n_angular_params]."""
         n_vap = features["positions"].shape[0]
-        if self.backend == "pallas":
-            from ..ops.fused import fused_g4
-            return fused_g4(self, features, acut, n_slots)
         if self.backend == "dense":
             from ..ops.dense import (dense_triple_geometry,
                                      slot_onehot_dense, contract_slots)

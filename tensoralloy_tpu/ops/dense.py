@@ -1,12 +1,11 @@
 """Dense per-atom neighbor layout: gathers in, matmuls out, NO scatters.
 
-Measured on the v5e chip, XLA TPU scatter-adds (`segment_sum`, scatter
-densification) run ~30x below HBM bandwidth — they dominate the flat
-pair path at SNAP-scale padding. The featurizer therefore builds the
-dense `[n_vap, nnl]` layout on the HOST (`pair_j_d`/`pair_shift_d`/
-`pair_mask_d`/`pair_islot_d`, triples likewise); on device the forward
-pass is gathers (`positions[pair_j_d]`) + elementwise filters + a
-batched matmul over the neighbor axis (MXU):
+The flat pair path reduces with scatter-adds (`segment_sum`, scatter
+densification). The featurizer instead builds the dense `[n_vap, nnl]`
+layout on the HOST (`pair_j_d`/`pair_shift_d`/`pair_mask_d`/
+`pair_islot_d`, triples likewise); on device the forward pass is
+gathers (`positions[pair_j_d]`) + elementwise filters + a batched
+matmul over the neighbor axis:
 
     G[a, s, t] = sum_j sel[a, j, s] v[a, j, t]  =  sel_d^T @ v_d
 
@@ -23,12 +22,9 @@ import numpy as np
 from .pairs import safe_norm
 
 # Periodic-image triples are PACKED into one int32 per pair slot
-# (`pair_simg_d`): on TPU any gather whose operand or result has a
-# minor dim of 3 is laid out in (8, 128) tiles — a 42.7x padding tax
-# on memory AND bandwidth (measured: 3 x 7 GB HLO temps at 131k atoms,
-# artifacts/bench_inference_r4.err). One [A, N] int32 keeps every
-# dense feature 2-D, so padding/sharding/batching machinery needs no
-# [*, 3] special cases and nothing on device ever gathers a vector.
+# (`pair_simg_d`): one [A, N] int32 keeps every dense feature 2-D, so
+# padding/sharding/batching machinery needs no [*, 3] special cases
+# and nothing on device ever gathers a [*, 3] shift array.
 SIMG_BASE = 31
 SIMG_OFF = 15          # components must lie in [-15, 15]
 SIMG_ZERO = SIMG_OFF * (1 + SIMG_BASE + SIMG_BASE * SIMG_BASE)
@@ -70,15 +66,8 @@ def gather_vec(pos, jd, simg, cell, centers=None):
     `centers` (row-chunked evaluation) defaults to `pos`.
 
     The neighbor positions are fetched with ONE row gather `pos[jd]`
-    and sliced into components afterwards.  The seemingly equivalent
-    per-component form `pos[:, a][jd]` is catastrophic on TPU when it
-    fuses with the surrounding arithmetic: XLA serializes the fused
-    slice-operand gather (measured 0.74 s vs 0.037 s for this whole
-    function at the 131k-atom/nnl-128 bench shape; an
-    optimization_barrier does NOT recover it —
-    `artifacts/probe_fast_efs3.py`).  The row-gather output does pay
-    the (8, 128)-tile minor-axis padding once (~31 ms of HBM at that
-    shape), which is the measured residual."""
+    and sliced into components afterwards, rather than one gather per
+    component (`pos[:, a][jd]`)."""
     c = pos if centers is None else centers
     dtype = pos.dtype
     sv = shift_dot_cell(simg, cell, dtype)
@@ -92,15 +81,12 @@ def gather_vec(pos, jd, simg, cell, centers=None):
 
 
 # Layout of the neighbor-position row gather inside `gather_vec`:
-#   'row' — `pos[jd]` -> [A, N, 3]: the 3-wide minor axis lane-pads
-#           3 -> 128 (~42x physical bytes; probe_efs_gap_r5 measured
-#           this materialization at ~51% of the whole 131k EAM fast
-#           pass).
+#   'row' — `pos[jd]` -> [A, N, 3] (the default).
 #   't'   — explicit `lax.gather` with offset_dims=(1,) -> [A, 3, N]:
-#           lane axis = NNL (no pad), sublane pads 3 -> 8 (2.7x).
+#           the neighbor axis is minor.
 # Both return the same (vx, vy, vz) component tuple (parity pinned in
-# test_dense_efs.py); the switch exists so the faster layout can be
-# selected from a chip measurement (artifacts/probe_geom_layout.py).
+# test_backends.py); never measured on a GPU, the switch goes or stays
+# on a measurement.
 GATHER_LAYOUT = "row"
 
 
@@ -139,7 +125,7 @@ def dense_pair_geometry(features):
     if "pair_j_d" not in features:
         raise KeyError(
             "features lack the dense pair layout ('pair_j_d' ...) — "
-            "re-featurize with this version to use the dense/pallas "
+            "re-featurize with this version to use the dense "
             "descriptor backends")
     pos = features["positions"]
     cell = features["cell"]
@@ -174,7 +160,7 @@ def dense_triple_geometry(features):
     if "trip_j_d" not in features:
         raise KeyError(
             "features lack the dense triple layout ('trip_j_d' ...) — "
-            "re-featurize with this version to use the dense/pallas "
+            "re-featurize with this version to use the dense "
             "descriptor backends")
     pos = features["positions"]
     cell = features["cell"]
@@ -221,10 +207,7 @@ def transpose_reduce(g, trans_idx: jnp.ndarray,
     lists guarantee the occurrence count of a as a neighbor equals a's
     own neighbor count, so the table is never wider than the source).
     `g` is a component tuple of [A, N] arrays; the components are
-    stacked into one [A*N, 3] table fetched by a single ROW gather —
-    per-component 1D-operand gathers serialize on TPU when they fuse
-    with the multiply/reduce (0.74 s vs 0.037 s for the analogous
-    position fetch at 131k/128; `artifacts/probe_fast_efs3.py`)."""
+    stacked into one [A*N, 3] table fetched by a single ROW gather."""
     tab = jnp.stack([gc.reshape(-1) for gc in g], axis=-1)  # [A*N, 3]
     gt = tab[trans_idx]                                     # [A, C, 3]
     return tuple(jnp.sum(gt[..., c] * trans_mask, axis=1)
@@ -236,9 +219,8 @@ def make_dense_efs_fn(energy_fn, extras_fn=None):
     (`make_rij_efs_fn`'s contract, generalized to the dense layout).
 
     The autodiff EFS (`make_efs_fn`) differentiates w.r.t. positions,
-    so the VJP of `positions[pair_j_d]` lowers to an XLA TPU
-    scatter-add — the dominant cost at 100k-atom padding (VERDICT r3
-    weak #1). Here the energy is differentiated w.r.t. the pair (and
+    so the VJP of `positions[pair_j_d]` lowers to a scatter-add. Here
+    the energy is differentiated w.r.t. the pair (and
     triple) VECTORS instead; forces are then assembled exactly:
 
         dE/dpos_k = sum_{slots of row k} (-g)            (center side)
@@ -250,7 +232,7 @@ def make_dense_efs_fn(energy_fn, extras_fn=None):
     for minimum-image energies. Needs features from a featurizer that
     emits the transpose tables (host path; the device-NL builder does
     not yet)."""
-    from ..nn.fields import full_to_voigt, EV_ANGSTROM3_TO_GPA
+    from ..nn.fields import full_to_voigt, EV_ANGSTROM3_TO_GPA, HIGHEST
 
     def efs(params, features):
         pos = features["positions"]
@@ -298,7 +280,8 @@ def make_dense_efs_fn(energy_fn, extras_fn=None):
 
         def outer_virial(g, vv):
             return jnp.stack(
-                [jnp.stack([jnp.vdot(g[a], vv[b]) for b in range(3)])
+                [jnp.stack([jnp.vdot(g[a], vv[b], precision=HIGHEST)
+                            for b in range(3)])
                  for a in range(3)])
 
         g = grads[0]

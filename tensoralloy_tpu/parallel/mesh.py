@@ -2,11 +2,11 @@
 
 The reference's only parallelism is data-parallel replication with
 NCCL/ring all-reduce (`tensoralloy/train/distribute_utils.py:84-159`).
-The TPU-native equivalent: a 1-D `jax.sharding.Mesh` over the "data"
-axis; batches are sharded on their leading axis, params replicated, and
-XLA inserts the gradient `psum` over ICI when the jitted train step
-consumes sharded inputs. Multi-host scale-out extends the same mesh over
-DCN via `jax.distributed` without code changes here.
+The equivalent here: a 1-D `jax.sharding.Mesh` over the "data" axis;
+batches are sharded on their leading axis, params replicated, and XLA
+inserts the gradient `psum` (NCCL on GPUs) when the jitted train step
+consumes sharded inputs. Multi-host scale-out extends the same mesh
+via `jax.distributed` without code changes here.
 
 For very large cells the same machinery can shard the *pair axis* of a
 single structure ("spatial parallelism"): pairs are independent rows of

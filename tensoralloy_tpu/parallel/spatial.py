@@ -6,7 +6,7 @@ a single structure's PAIR/TRIPLE arrays are sharded over the mesh while
 positions/cell and every per-atom array stay replicated. Every per-atom
 accumulation in the models is a `segment_sum` (or dense-layout matmul)
 over the pair axis, so under `jit` XLA's SPMD partitioner computes
-partial per-atom sums on each device and inserts the `psum` over ICI
+partial per-atom sums on each device and inserts the `psum`
 automatically — the SAME energy function runs unchanged, and reverse-
 mode forces/stress shard the scatter-adds the same way. Nonlinear
 per-atom stages (EAM embedding F(rho), per-element MLPs) happen after
@@ -130,7 +130,7 @@ def shard_features_spatial_dense(feats: Dict, mesh: Mesh,
     the mesh — each device owns a slice of every atom's neighbors —
     while positions / cell / per-atom arrays replicate. Row reductions
     (rho sums, forces, virial) become per-device partials + an XLA
-    `psum` over ICI; per-atom adjoint gathers (g_rho[jd]) read the
+    `psum`; per-atom adjoint gathers (g_rho[jd]) read the
     replicated [n_vap] arrays locally. The column widths are
     power-of-two buckets, so any mesh size divides after padding."""
     n_dev = mesh.shape[axis_name]

@@ -2,10 +2,14 @@
 
 Two named precisions:
   * ``high``   -> float64 (requires ``jax_enable_x64``; CPU parity/physics)
-  * ``medium`` -> float32 (TPU compute path)
+  * ``medium`` -> float32 (the accelerator compute path)
 
-On TPU, ``medium`` is the production setting; matmuls additionally run in
-bf16 on the MXU unless ``jax.default_matmul_precision`` says otherwise.
+``medium`` is the production setting. On a GPU its float32 matmuls run
+as TF32 (10-bit mantissa) unless ``jax.default_matmul_precision`` or a
+``precision`` argument says otherwise: the model's own matmuls keep that
+default, while the virial contractions over all atoms always run exact
+(``nn.fields.HIGHEST``), and evaluation steps default to 'highest'
+(``TrainParameters.eval_matmul_precision``).
 """
 from __future__ import annotations
 

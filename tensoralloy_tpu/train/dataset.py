@@ -1,6 +1,6 @@
 """Dataset pipeline: database -> featurized, padded, batched arrays.
 
-TPU-first redesign of the reference's tfrecord pipeline
+Redesign of the reference's tfrecord pipeline
 (`tensoralloy/train/dataset/dataset.py`): instead of protobuf encode /
 decode, structures are featurized once into fixed-shape numpy arrays,
 cached as a compressed ``.npz`` shard next to the database (file name

@@ -74,7 +74,7 @@ class TrainingManager:
         fa = str(r.get("train.force_assembly", "auto") or "auto")
         if fa == "dense" and layout != "dense":
             raise ValueError(
-                "train.force_assembly='dense' requires a dense/pallas "
+                "train.force_assembly='dense' requires a dense "
                 f"descriptor backend (pair_style {r['pair_style']!r} "
                 "uses the flat segment layout)")
         self.dataset = Dataset(

@@ -61,29 +61,33 @@ class TrainParameters:
     # reported from the last step of each fused block)
     scan_steps: int = 1
     # keep the WHOLE training set device-resident and gather batches on
-    # device by index (single upload instead of per-step host->device
-    # transfer — this link pays ~30 ms + low bandwidth per dispatch).
+    # device by index (single upload instead of a host->device
+    # transfer per step).
     # Used when the mesh is a single device; multi-device data-parallel
     # runs shard per-step batches instead.
     device_dataset: bool = True
     # Upper bound (GiB) on the padded feature+label arrays eligible for
     # the device-resident path; larger datasets automatically fall back
-    # to host streaming instead of OOMing HBM at upload time.
+    # to host streaming instead of running out of device memory at
+    # upload time. The value was sized for a 16 GB device and is kept
+    # on an 80 GB one.
     device_dataset_max_gb: float = 6.0
-    # Matmul precision for the EVAL step only. On TPU the 'medium'
-    # policy runs matmuls on the MXU in bf16; late in training (once
-    # the LR decays below the rounding noise) the optimizer co-adapts
-    # the weights to those numerics, so a bf16-evaluated test MAE can
-    # read up to ~2x better than exact-f32 evaluation of the SAME
-    # parameters (measured on snap_ni_refsf: 2.23 vs 4.08 meV/atom at
-    # ckpt-150000; intermediate ckpt-105000 matched to 0.6%).
+    # Matmul precision for the EVAL step only. Under the 'medium'
+    # policy float32 matmuls on a GPU default to TF32 (10-bit
+    # mantissa): on an H100 the GRAP train step's loss moves by ~6e-4
+    # relative and its gradient by ~4e-2 of its largest entry against
+    # exact float32 (chip_smoke.py). Late in training (once the LR
+    # decays below the rounding noise) the optimizer co-adapts the
+    # weights to such numerics, so a reduced-precision test MAE can
+    # read better than exact-f32 evaluation of the SAME parameters
+    # (a bf16-trained model read 2.23 vs 4.08 meV/atom, snap_ni_refsf).
     # 'highest' makes training-time evals report deployment-grade
     # (f32) numbers for a negligible cost at eval cadence; set
     # 'default' to reproduce the device's native inference numerics.
     eval_matmul_precision: str = "highest"
     # Precision annealing: run the LAST N optimizer steps with
     # exact-f32 matmuls (one extra compile at the switch). Trains at
-    # full MXU speed, then re-adapts the co-adapted weights to
+    # full TF32 speed, then re-adapts the co-adapted weights to
     # deployment numerics in place — the built-in form of the
     # snap_ni_refsf_readapt experiment. 0 = off. The switch happens at
     # the first fused scan block whose start step crosses
@@ -92,14 +96,12 @@ class TrainParameters:
     # How the training/eval step assembles forces and stress from the
     # energy (the reference always autodiffs, `nn/basic.py:276-421`):
     #   'autodiff' — jax.grad w.r.t. positions. The VJP of every
-    #       positions[pair_j_d] gather lowers to an XLA TPU
-    #       scatter-add, the op class measured far below HBM bandwidth
-    #       on this chip (see `ops/dense.py`).
+    #       positions[pair_j_d] gather lowers to a scatter-add.
     #   'dense'    — differentiate w.r.t. the dense pair/triple
     #       VECTORS and assemble forces through the featurizer's
     #       host-built transpose tables (gather + row reduction, no
     #       scatter anywhere; `ops/dense.make_dense_efs_fn`). Requires
-    #       a dense/pallas descriptor backend AND features built with
+    #       a dense descriptor backend AND features built with
     #       transpose=True (`Dataset(..., transpose=True)`).
     #   'auto'     — 'dense' whenever both requirements hold,
     #       'autodiff' otherwise. Values agree to f64 1e-10 (pinned);
@@ -109,17 +111,10 @@ class TrainParameters:
     # Gradient accumulation: split each optimizer batch into
     # batch_size/microbatch_size chunks inside the compiled step
     # (lax.scan), averaging the per-chunk gradients before ONE
-    # optimizer update. 0 = off (monolithic batch). Motivation is a
-    # measured TPU compiler regime switch, not memory alone:
-    # probe_train_scaling_r5 (chip, idle) shows the SNAP train step at
-    # bs 512 runs 1.6x SLOWER per structure than at bs 32/128 (328 vs
-    # 202/209 us/struct) while XLA's bytes-accessed per structure
-    # DROPS ~2x in exactly the stage (position backward) that relies
-    # on materialized row-gather tables — at large live sets XLA fuses
-    # the gathers it materialized at small batch, which serializes
-    # them (the round-4 probe3 pathology, see ops/dense.py). Keeping
-    # the per-chunk shapes in the fast regime and scanning restores
-    # small-batch throughput at any optimizer batch size.
+    # optimizer update. 0 = off (monolithic batch). It keeps the
+    # compiled shapes at the chunk size whatever the optimizer batch:
+    # for memory, or where a large monolithic batch compiles to a
+    # slower program per structure. Not measured on a GPU yet.
     # Semantics: gradients are the MEAN over chunks of per-chunk
     # batch gradients — identical to the monolithic batch whenever the
     # loss is linear in the batch mean (logcosh/mse-type, uniform
@@ -288,7 +283,7 @@ class Trainer:
         if mode == "dense":
             if self._dense_efs is None:
                 raise ValueError(
-                    "force_assembly='dense' needs a dense/pallas "
+                    "force_assembly='dense' needs a dense "
                     "descriptor backend (this model's energy reads the "
                     "flat segment layout)")
             if not have:
@@ -517,7 +512,7 @@ class Trainer:
         train_step = self._make_raw_train_step()
         # Inputs arrive pre-sharded (batch over the data axis, state
         # replicated); jit honors argument shardings and XLA inserts the
-        # gradient all-reduce over ICI.
+        # gradient all-reduce.
         scan_steps = self.train_parameters.scan_steps
         if scan_steps and scan_steps > 1:
             def fused(state, feats_stacked, labels_stacked):
@@ -690,7 +685,7 @@ class Trainer:
         examples = 0
         # precision annealing: past this step the train step runs with
         # exact-f32 matmuls (lazy second compile) so the deployed
-        # weights are adapted to deployment numerics, not the MXU's
+        # weights are adapted to deployment numerics, not TF32
         f32_after = (tp.train_steps - int(
             getattr(tp, "final_f32_steps", 0) or 0))
         annealing = f32_after < tp.train_steps

@@ -2,16 +2,14 @@
 
 The host featurizer (`transform/featurizer.py`) builds index arrays with
 numpy/C++ — fine for training (featurize once, cache), but for MD and
-large-cell inference the host becomes the bottleneck: at 131k atoms the
-device EFS takes ~2.6 s while host featurization takes ~80 s on a
-throttled vCPU (bench_inference.py). This module moves the neighbor
-list itself onto the TPU so the full pipeline — binning, pair
+large-cell inference the host becomes the bottleneck. This module
+moves the neighbor list itself onto the device so the full pipeline — binning, pair
 enumeration, descriptors, energy, forces — is one jitted program with
 no host round trip.
 
 The reference has no analogue (its `tensoralloy/neighbor.py` wraps
 ASE's C neighbor list on the host and feeds a feed_dict per structure);
-this is a TPU-native capability beyond it.
+this is a capability beyond it.
 
 Algorithm (all static shapes, XLA-friendly):
   1. fractional coords; wrap along periodic axes (wrap offsets are
@@ -333,10 +331,8 @@ class DeviceNeighborList:
 
         slot = jnp.arange(K, dtype=jnp.int32)
         rc2 = jnp.asarray(self.cutoff * self.cutoff, dtype=fdt)
-        # per-component position columns: gathers of [*, 3] arrays are
-        # laid out in (8, 128) TPU tiles (42.7x padding — 3 x 7 GB HLO
-        # temps at 131k atoms, the r4 OOM), so ALL stencil geometry
-        # below is structure-of-arrays [n, K] math
+        # per-component position columns: ALL stencil geometry below
+        # is structure-of-arrays [n, K] math (no [*, 3] gathers)
         pw = tuple(posw[:, a] for a in range(3))
         j_blocks, valid_blocks = [], []
         for o in self.offsets:                        # static loop
@@ -380,8 +376,8 @@ class DeviceNeighborList:
         # sort traffic of the previous variadic (key, j) sort).
         # TA_NL_COMPACTION=topk switches to lax.top_k (partial
         # selection of the NNL smallest keys instead of a full
-        # C-wide sort) — identical results, chip A/B via
-        # artifacts/probe_scatter.py + bench_inference --device-nl.
+        # C-wide sort) — identical results; A/B with
+        # bench_inference --device-nl.
         col = jnp.arange(C, dtype=jnp.int32)[None, :]
         key = jnp.broadcast_to(jnp.where(valid_all, col, C), (n, C))
         if os.environ.get("TA_NL_COMPACTION") == "topk":

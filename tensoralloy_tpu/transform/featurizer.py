@@ -1,6 +1,6 @@
 """Featurization: structures -> fixed-shape device arrays.
 
-This is the TPU-native re-design of the reference's transformer layer
+This is the re-design of the reference's transformer layer
 (`tensoralloy/transformer/universal.py`). The reference scatters pair
 data into a dense ``[4, n_terms, n_atoms_vap, nnl_max, 1]`` g-tensor;
 here we keep **flat padded pair/triple index arrays** and let the model
@@ -154,7 +154,7 @@ class Featurizer:
         single neighbor-list pass, bounded recompilation.
 
         `nnl_max`/`ntl_max` fix the widths of the dense per-atom
-        neighbor/triple layouts used by the 'dense' and 'pallas'
+        neighbor/triple layouts used by the 'dense'
         descriptor backends; default = this structure's own maxima.
         `ttrans_max` likewise fixes the width of the triple TRANSPOSE
         tables (`transpose=True`, angular models) so featurized
@@ -222,10 +222,9 @@ class Featurizer:
                 [np.ones(nij), np.zeros(pad)]).astype(dtype)
 
         if layout in ("both", "dense"):
-            # Dense per-atom layout, built on the HOST: XLA TPU
-            # scatters run far below HBM bandwidth, so the device must
-            # see gathers only. Row = VAP index of the center, column =
-            # neighbor counter.
+            # Dense per-atom layout, built on the HOST so the device
+            # sees gathers only. Row = VAP index of the center, column
+            # = neighbor counter.
             cols, nnl = _columns_of(ilist, len(structure))
             if nnl_max is not None:
                 if nnl > nnl_max:
@@ -243,10 +242,10 @@ class Featurizer:
             rows = vap.local_to_vap[ilist]
             from ..ops.dense import encode_simg_np, SIMG_ZERO
             pjd = np.zeros((n_vap, nnl), np.int32)
-            # periodic images packed into ONE int32 per slot: a [*, 3]
-            # gather operand/result is laid out in (8, 128) TPU tiles
-            # (42.7x padding tax — see ops/dense.py); padding slots
-            # carry the zero-image code so decoded garbage stays small
+            # periodic images packed into ONE int32 per slot (every
+            # dense feature stays 2-D — see ops/dense.py); padding
+            # slots carry the zero-image code so decoded garbage stays
+            # small
             psd = np.full((n_vap, nnl), SIMG_ZERO, np.int32)
             pmd = np.zeros((n_vap, nnl), dtype)
             pisd = np.zeros((n_vap, nnl), dtype)
@@ -299,7 +298,7 @@ class Featurizer:
         ii, jj, ss = ii[order], jj[order], ss[order]
 
         pq = None
-        if not os.environ.get("TENSORALLOY_TPU_NO_NATIVE"):
+        if not os.environ.get("TENSORALLOY_NO_NATIVE"):
             from ..native import native_triple_list
             pq = native_triple_list(ii, len(structure))
         if pq is not None:

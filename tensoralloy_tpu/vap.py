@@ -6,7 +6,7 @@ counts fit within ``max_occurs`` maps into one static layout of
 ``1 + sum(max_occurs)`` rows — row 0 is the virtual padding atom "X",
 then ``max_occurs[e]`` contiguous rows per element (elements sorted).
 
-This layout is what makes per-element MLPs static slices on TPU: atom
+This layout is what makes per-element MLPs static slices under jit: atom
 rows of element ``e`` always live at ``offset[e] : offset[e]+max_occurs[e]``.
 """
 from __future__ import annotations

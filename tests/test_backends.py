@@ -1,7 +1,6 @@
 """Descriptor backend equivalence: segment (flat + segment_sum) vs
-dense (per-atom matmul layout, MXU) vs pallas (fused VMEM kernels,
-interpret mode off-TPU) — values AND gradients (forces/stress train
-through the fused kernels via their custom VJPs)."""
+dense (per-atom matmul layout) — values AND gradients (forces/stress
+through both layouts)."""
 import copy
 from collections import Counter
 
@@ -39,7 +38,7 @@ def _tol():
     return dict(rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("backend", ["dense", "pallas"])
+@pytest.mark.parametrize("backend", ["dense"])
 def test_g2_backends_match(backend):
     s, fz, feats = _feats(angular=False)
     ref = SymmetryFunction(fz.elements)
@@ -49,7 +48,7 @@ def test_g2_backends_match(backend):
     np.testing.assert_allclose(g_alt, g_ref, **_tol())
 
 
-@pytest.mark.parametrize("backend", ["dense", "pallas"])
+@pytest.mark.parametrize("backend", ["dense"])
 def test_g4_backends_match(backend):
     s, fz, feats = _feats(angular=True)
     ref = SymmetryFunction(fz.elements)
@@ -59,7 +58,7 @@ def test_g4_backends_match(backend):
     np.testing.assert_allclose(g_alt, g_ref, **_tol())
 
 
-@pytest.mark.parametrize("backend", ["dense", "pallas"])
+@pytest.mark.parametrize("backend", ["dense"])
 @pytest.mark.parametrize("algorithm,moments", [
     ("pexp", [0, 1, 2, 3]),
     ("pexp", [0, 1, 2, 3, 4, 5]),   # full-basis regime (kernel uses
@@ -87,10 +86,10 @@ def test_grap_backends_match(backend, algorithm, moments):
     np.testing.assert_allclose(g_alt, g_ref, **_tol())
 
 
-@pytest.mark.parametrize("backend", ["dense", "pallas"])
+@pytest.mark.parametrize("backend", ["dense"])
 def test_forces_and_stress_through_backends(backend):
     """The full EFS pipeline (jax.grad of energy wrt positions + cell)
-    must agree across backends — the pallas custom VJP trains."""
+    must agree across backends."""
     s = _structure(3)
     fz = Featurizer(["Mo", "Ni"], rcut=4.5, angular=True)
     vap0 = fz.make_vap(s)
@@ -112,30 +111,6 @@ def test_forces_and_stress_through_backends(backend):
                                rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(alt["stress_voigt"], ref["stress_voigt"],
                                rtol=2e-4, atol=2e-5)
-
-
-def test_grap_grad_through_pallas_vjp():
-    """Gradient wrt positions through the fused GRAP kernel matches the
-    segment path (custom VJP correctness)."""
-    s, fz, feats = _feats(angular=False, seed=5)
-    kw = dict(algorithm="pexp",
-              parameters={"rl": [1.5, 2.5], "pl": [4.0, 2.0]},
-              moment_tensors=[0, 1, 2])
-
-    def loss_with(be):
-        desc = GenericRadialAtomicPotential(fz.elements, backend=be, **kw)
-
-        def loss(pos):
-            f = dict(feats)
-            f["positions"] = pos
-            g = desc.compute(f, fz.rcut, fz.acut, fz.n_radial_slots,
-                             fz.n_angular_slots, False)
-            return jnp.sum(jnp.square(g))
-        return jax.grad(loss)(feats["positions"])
-
-    g_ref = np.asarray(loss_with("segment"))
-    g_pal = np.asarray(loss_with("pallas"))
-    np.testing.assert_allclose(g_pal, g_ref, rtol=2e-4, atol=2e-5)
 
 
 def test_backend_survives_model_save_roundtrip(tmp_path):
@@ -227,3 +202,23 @@ def test_gather_vec_layout_t_matches():
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, b, rtol=0, atol=0)
     np.testing.assert_allclose(dgot, dref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("where", ["sf", "grap", "toml"])
+def test_pallas_backend_is_rejected(where, tmp_path):
+    """The fused-kernel backend is gone: every entry point that takes a
+    descriptor backend names the valid choices."""
+    if where == "sf":
+        with pytest.raises(ValueError, match="'segment' or 'dense'"):
+            SymmetryFunction(["Ni"], backend="pallas")
+    elif where == "grap":
+        with pytest.raises(ValueError, match="'segment' or 'dense'"):
+            GenericRadialAtomicPotential(["Ni"], backend="pallas")
+    else:
+        from tensoralloy_tpu.io.input import InputReader
+        path = tmp_path / "input.toml"
+        path.write_text('[dataset]\nsqlite3 = "x.db"\nname = "x"\n'
+                        '[nn.atomic.grap]\nbackend = "pallas"\n')
+        with pytest.raises(ValueError, match="not a valid choice for "
+                           "'nn.atomic.grap.backend'"):
+            InputReader(str(path))

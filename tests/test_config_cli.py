@@ -200,7 +200,7 @@ def test_elastic_cubic_zjw04():
 
 def test_cli_build_and_print(tmp_path):
     env = dict(os.environ)
-    env["TENSORALLOY_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
     out = subprocess.run(
         [sys.executable, "-m", "tensoralloy_tpu.cli", "build",
@@ -230,7 +230,7 @@ def test_cli_print_reference_tf_logfile(tmp_path):
     import subprocess
     out = tmp_path / "summary.csv"
     env = dict(os.environ)
-    env["TENSORALLOY_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
     r = subprocess.run(
         [sys.executable, "-m", "tensoralloy_tpu.cli", "print",
@@ -275,7 +275,7 @@ def test_vasp2lammps_roundtrip(tmp_path):
     np.testing.assert_allclose(back2.positions, s.positions, atol=1e-8)
 
     env = dict(os.environ)
-    env["TENSORALLOY_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
     out = subprocess.run(
         [sys.executable, "-m", "tensoralloy_tpu.cli", "vasp2lammps",

@@ -1,8 +1,8 @@
 """Scatter-free analytic EAM EFS (`nn/eam/fast_efs.py`) parity vs the
 autodiff path (`nn/fields.make_efs_fn`) — same features, f64, 1e-10.
 
-The fast path exists because XLA TPU scatters (forward segment_sum +
-gather-VJP) run far below HBM speed at the 10M-pair scale; its math is
+The fast path replaces the scatter-adds of the autodiff path (forward
+segment_sum + gather-VJP) with gathers and row reductions; its math is
 a hand-derived accumulator-adjoint force formula that must match the
 autodiff result EXACTLY (no approximation anywhere), including ADP's
 vector moments, per-term grouping, multi-element bucketed padding and

@@ -251,27 +251,6 @@ def test_restore_reset_global_step_restarts_lr_schedule(tmp_path):
     assert any(c == 5 for c in counts2)
 
 
-def test_pallas_backend_high_moments_fall_back_to_dense():
-    """The fused kernel's compressed basis tops out at moment 3; for
-    moments 4-5 the pallas backend must produce the same (correct)
-    invariants as the dense path instead of misaligned/zero columns."""
-    s = _ni_cell(6)
-    fz = Featurizer(["Ni"], rcut=4.5)
-
-    def compute(backend):
-        g = GenericRadialAtomicPotential(
-            ["Ni"], algorithm="pexp",
-            parameters={"rl": [1.5, 2.5], "pl": [4.0, 2.0]},
-            moment_tensors=[0, 1, 2, 3, 4, 5], backend=backend)
-        m = AtomicNN(fz, Counter(s.symbols), g, hidden_sizes=[4],
-                     minmax_scale=False)
-        p = m.init_params(jax.random.PRNGKey(0))
-        return np.asarray(m.descriptors(_feats(fz, m, s), p))
-
-    np.testing.assert_allclose(compute("pallas"), compute("dense"),
-                               atol=1e-10)
-
-
 def test_slab_with_zero_lattice_vector_keeps_inplane_periodicity():
     """A 2D slab (zero third lattice vector, pbc=[T,T,F]) must keep
     its in-plane periodic images; a periodic axis with a degenerate

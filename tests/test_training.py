@@ -195,8 +195,9 @@ def test_eval_matmul_precision_validated_at_construction():
 
 def test_eval_matmul_precision_is_deployment_grade(trained):
     """Training-time evals must lower at exact-f32 matmul precision by
-    default: on TPU the bf16 MXU co-adapts late-training weights to
-    its own rounding, and a bf16-evaluated test MAE can read ~2x
+    default: reduced-precision (bf16/TF32) matmuls co-adapt
+    late-training weights to their own rounding, and a bf16-evaluated
+    test MAE can read ~2x
     better than exact evaluation of the SAME params (measured:
     snap_ni_refsf 2.23 vs 4.08 meV/atom at ckpt-150000). Pins the
     default, the knob plumbing, and that a rebuilt eval step under an
